@@ -16,10 +16,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels import QuantumKernelSpec
-from dqgp_tpu.models.kernels.quantum_kernel import kernel_features
-from dqgp_tpu.parallel.blocked import gp_posterior_large, nll_large
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels import QuantumKernelSpec
+from dqgp.models.kernels.quantum_kernel import kernel_features
+from dqgp.parallel.blocked import gp_posterior_large, nll_large
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 50_000
 M = 512  # test points
@@ -36,7 +36,7 @@ X = jnp.asarray(rng.uniform(-0.99, 0.99, (N + M, 2)), jnp.float32)
 theta = jnp.asarray(rng.uniform(0, np.pi, spec.num_parameters), jnp.float32)
 
 t0 = time.time()
-F = kernel_features(spec, X, theta)  # one batched state pass (Pallas at 10q)
+F = kernel_features(spec, X, theta)  # one batched state pass
 F.block_until_ready()
 print(f"features for {N + M} samples: {time.time() - t0:.2f}s -> {F.shape}")
 

@@ -16,11 +16,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from dqgp_tpu.data import generate_quantum_gp_data, split_data_numpy
-from dqgp_tpu.driver import TrainConfig, train
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.gp import evaluate_predictions, predict_quantum_gp
-from dqgp_tpu.models.kernels import QuantumKernelSpec
+from dqgp.data import generate_quantum_gp_data, split_data_numpy
+from dqgp.driver import TrainConfig, train
+from dqgp.models.circuits import build_circuit
+from dqgp.models.gp import evaluate_predictions, predict_quantum_gp
+from dqgp.models.kernels import QuantumKernelSpec
 
 spec = QuantumKernelSpec(
     circuit=build_circuit("hubregtsen", num_qubits=3, num_features=2, num_layers=1),

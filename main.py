@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Entry point, flag-compatible with the reference CLI: ``python main.py <flags>``."""
-from dqgp_tpu.cli import main
+from dqgp.cli import main
 
 if __name__ == "__main__":
     main()

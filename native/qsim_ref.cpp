@@ -1,7 +1,7 @@
 // Reference statevector simulator in C++ — the independent numerics oracle
-// for the JAX/Pallas engines, playing the role qiskit-aer's C++ simulator
+// for the JAX engine, playing the role qiskit-aer's C++ simulator
 // plays for the reference (SURVEY.md §2.11). Consumes the same circuit IR
-// (gate kind / qubit / control codes from dqgp_tpu/ops/circuit.py) plus a
+// (gate kind / qubit / control codes from dqgp/ops/circuit.py) plus a
 // precomputed (B, G) angle matrix; produces statevectors and single-qubit
 // Pauli expectation features.
 //
@@ -15,7 +15,7 @@
 using cd = std::complex<double>;
 
 namespace {
-// Gate kind codes — MUST match dqgp_tpu/ops/circuit.py.
+// Gate kind codes — MUST match dqgp/ops/circuit.py.
 enum Kind { RX = 0, RY, RZ, H, CX, CZ, CRX, CRY, CRZ, RZZ };
 
 constexpr double kSqrt1_2 = 0.70710678118654752440;

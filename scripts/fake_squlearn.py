@@ -6,7 +6,7 @@ the exact module layout / class names / call signatures the reference uses
 (/root/reference/main.py:25-35, 68-145) — `encoding_circuit` classes with
 `num_parameters` and `get_circuit`, `kernel.FidelityKernel` /
 `kernel.ProjectedQuantumKernel` with `assign_parameters` + `evaluate`, and
-`util.Executor` — but computes everything with `dqgp_tpu` itself.
+`util.Executor` — but computes everything with `dqgp` itself.
 
 Two modes:
 
@@ -36,7 +36,7 @@ MODULE_NAME = "fake_squlearn_mod"
 
 def _perturb(circ):
     """Reverse control/target of every controlled-rotation ring gate."""
-    from dqgp_tpu.ops.circuit import CRX, CRY, CRZ, Circuit
+    from dqgp.ops.circuit import CRX, CRY, CRZ, Circuit
 
     gates = []
     changed = False
@@ -71,8 +71,8 @@ class _FakeBoundCircuit:
     def data(self) -> List[_FakeInstruction]:
         import jax.numpy as jnp
 
-        from dqgp_tpu.ops import statevector as sv
-        from dqgp_tpu.ops.circuit import KIND_NAMES, PARAMETERIZED
+        from dqgp.ops import statevector as sv
+        from dqgp.ops.circuit import KIND_NAMES, PARAMETERIZED
 
         ang = np.asarray(sv.angle_matrix(
             self._circ, jnp.asarray(self._x[None, :], jnp.float64),
@@ -87,7 +87,7 @@ class _FakeBoundCircuit:
     def _dqgp_fake_state(self) -> np.ndarray:
         import jax.numpy as jnp
 
-        from dqgp_tpu.ops import statevector as sv
+        from dqgp.ops import statevector as sv
 
         ang = sv.angle_matrix(self._circ, jnp.asarray(self._x[None, :], jnp.float64),
                               jnp.asarray(self._theta, jnp.float64), jnp.float64)
@@ -97,7 +97,7 @@ class _FakeBoundCircuit:
 def _make_encoding_class(encoding_name: str, perturbed: bool):
     class _Enc:
         def __init__(self, num_qubits, num_features=1, num_layers=2, **kw):
-            from dqgp_tpu.models.circuits import build_circuit
+            from dqgp.models.circuits import build_circuit
 
             self._circ = build_circuit(encoding_name, num_qubits,
                                        num_features, num_layers)
@@ -125,7 +125,7 @@ class _FakeKernelBase:
         self._theta = np.asarray(theta, float)
 
     def _spec(self, kernel_type):
-        from dqgp_tpu.models.kernels.quantum_kernel import QuantumKernelSpec
+        from dqgp.models.kernels.quantum_kernel import QuantumKernelSpec
 
         return QuantumKernelSpec(
             circuit=self._enc._circ, kernel_type=kernel_type,
@@ -137,7 +137,7 @@ class _FakeKernelBase:
     def _evaluate(self, kernel_type, X, Y):
         import jax.numpy as jnp
 
-        from dqgp_tpu.models.kernels.quantum_kernel import gram
+        from dqgp.models.kernels.quantum_kernel import gram
 
         assert self._theta is not None, "assign_parameters first"
         return np.asarray(gram(self._spec(kernel_type),

@@ -25,13 +25,13 @@ import jax.numpy as jnp
 
 
 def main():
-    from sklearn.model_selection import train_test_split
+    from dqgp.data.splits import train_test_split
 
-    from dqgp_tpu.data import generate_quantum_gp_data, split_data_numpy
-    from dqgp_tpu.driver import TrainConfig, train
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.gp import evaluate_predictions, predict_quantum_gp
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
+    from dqgp.data import generate_quantum_gp_data, split_data_numpy
+    from dqgp.driver import TrainConfig, train
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.gp import evaluate_predictions, predict_quantum_gp
+    from dqgp.models.kernels import QuantumKernelSpec
 
     out = {}
     for dim in range(1, 7):

@@ -41,13 +41,13 @@ import jax.numpy as jnp  # noqa: E402
 def run_config(name, *, encoding, qubits, layers, dataset, n, n_agents,
                max_iter=5, region=None, kernel_type="projected",
                outer_kernel="matern", input_dim=2):
-    from dqgp_tpu.data import generate_quantum_gp_data, split_data_numpy
-    from dqgp_tpu.data.real_world import load_srtm_elevation_dataset
-    from dqgp_tpu.driver import TrainConfig, train
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.gp import evaluate_predictions, predict_quantum_gp
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
-    from sklearn.model_selection import train_test_split
+    from dqgp.data import generate_quantum_gp_data, split_data_numpy
+    from dqgp.data.real_world import load_srtm_elevation_dataset
+    from dqgp.driver import TrainConfig, train
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.gp import evaluate_predictions, predict_quantum_gp
+    from dqgp.models.kernels import QuantumKernelSpec
+    from dqgp.data.splits import train_test_split
 
     spec = QuantumKernelSpec(
         circuit=build_circuit(encoding, qubits, input_dim, layers),
@@ -109,7 +109,7 @@ def main():
     from make_synthetic_tiles import ensure_tiles
     ensure_tiles(SYNTH_TILE_DIR)
     targets = {
-        "recorded": "dqgp_tpu CPU float64 parity mode (see module docstring)",
+        "recorded": "dqgp CPU float64 parity mode (see module docstring)",
         "configs": {
             # regression-test case: small & fast, regressed exactly by
             # tests/test_parity_targets.py

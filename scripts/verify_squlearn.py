@@ -4,7 +4,7 @@ network/pip environment exists).
 
 The one correctness risk no offline round can discharge is exact
 gate-sequence equality between this repo's re-derived encoding circuits
-(`dqgp_tpu/models/circuits/library.py`) and squlearn 0.9.1's classes as the
+(`dqgp/models/circuits/library.py`) and squlearn 0.9.1's classes as the
 reference instantiates them (/root/reference/main.py:68-106,
 agent_riemannian.py:51-85). This script discharges it end to end:
 
@@ -18,12 +18,12 @@ For every case (8 encodings x {2,3,4} qubits x {1,2} layers, d=2) it
   2. compares the **bound gate sequence**: the squlearn circuit is rendered
      via qiskit with concrete (x, theta) bound, each instruction reduced to
      (gate name, qubit tuple, numeric angles); the IR renders itself the same
-     way through `dqgp_tpu.ops.statevector.angle_matrix` — equality here IS
+     way through `dqgp.ops.statevector.angle_matrix` — equality here IS
      gate-for-gate parity (names, wiring, angle algebra) up to 1e-9,
   3. compares **statevectors** on random inputs (both conventions are
      little-endian / qubit-0 = LSB),
   4. compares **fidelity and projected (XYZ, gaussian) Gram matrices**
-     against `dqgp_tpu.models.kernels` at f64 grade, and
+     against `dqgp.models.kernels` at f64 grade, and
   5. writes one `.npz` **fixture per case** in the exact contract
      `tests/test_reference_fixtures.py` consumes — dropping them into
      `fixtures/` permanently un-skips that test.
@@ -188,7 +188,7 @@ class ReferenceAdapter:
 
 
 def _repo_circuit(name: str, n: int, d: int, L: int):
-    from dqgp_tpu.models.circuits import build_circuit
+    from dqgp.models.circuits import build_circuit
 
     return build_circuit(name, n, d, L)
 
@@ -196,8 +196,8 @@ def _repo_circuit(name: str, n: int, d: int, L: int):
 def _repo_bound_gates(circ, x: np.ndarray, theta: np.ndarray) -> List[BoundGate]:
     import jax.numpy as jnp
 
-    from dqgp_tpu.ops import statevector as sv
-    from dqgp_tpu.ops.circuit import KIND_NAMES, PARAMETERIZED
+    from dqgp.ops import statevector as sv
+    from dqgp.ops.circuit import KIND_NAMES, PARAMETERIZED
 
     ang = np.asarray(sv.angle_matrix(
         circ, jnp.asarray(x[None, :], jnp.float64),
@@ -217,7 +217,7 @@ def _repo_bound_gates(circ, x: np.ndarray, theta: np.ndarray) -> List[BoundGate]
 def _repo_statevector(circ, x: np.ndarray, theta: np.ndarray) -> np.ndarray:
     import jax.numpy as jnp
 
-    from dqgp_tpu.ops import statevector as sv
+    from dqgp.ops import statevector as sv
 
     ang = sv.angle_matrix(circ, jnp.asarray(x[None, :], jnp.float64),
                           jnp.asarray(theta, jnp.float64), jnp.float64)
@@ -228,8 +228,8 @@ def _repo_gram(name: str, n: int, d: int, L: int, kernel_type: str,
                X: np.ndarray, theta: np.ndarray) -> np.ndarray:
     import jax.numpy as jnp
 
-    from dqgp_tpu.models.kernels import create_quantum_kernel
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.models.kernels import create_quantum_kernel
+    from dqgp.models.kernels.quantum_kernel import gram
 
     k = create_quantum_kernel(
         num_qubits=n, num_features=d, num_layers=L, encoding_type=name,

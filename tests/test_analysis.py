@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from dqgp_tpu.utils.analysis import compare_gt_vs_trained, nll_error_correlation
-from dqgp_tpu.utils import plotting
+from dqgp.utils.analysis import compare_gt_vs_trained, nll_error_correlation
+from dqgp.utils import plotting
 
 
 def _fake_history(m=10, seed=0):

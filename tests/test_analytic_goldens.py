@@ -8,7 +8,7 @@ close that gap offline: each one hand-builds the published circuit for
 defined below straight from the exp(-i theta P / 2) expansions — and, for
 three families, additionally as pure closed-form trig amplitude formulas
 derived on paper with no matrices at all. The expected values never flow
-through ops/circuit.py, ops/statevector.py, the Pallas kernel, or the C++
+through ops/circuit.py, ops/statevector.py, or the C++
 oracle. The pipeline (build_circuit -> angle_matrix -> states -> Gram /
 features / shift gradients) must reproduce them at 1e-12 through the
 complex128 path.
@@ -42,8 +42,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels.quantum_kernel import (
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels.quantum_kernel import (
     QuantumKernelSpec,
     gram,
     gram_and_shift_grads,
@@ -54,7 +54,7 @@ ATOL = 1e-12
 
 # ---------------------------------------------------------------------------
 # Independent mini-toolbox: textbook gate matrices + kron placement. Nothing
-# below imports from dqgp_tpu.ops — that independence is the whole point.
+# below imports from dqgp.ops — that independence is the whole point.
 # ---------------------------------------------------------------------------
 
 I2 = np.eye(2, dtype=complex)
@@ -145,7 +145,7 @@ def pipeline_state(name, theta, x=X0, d=1, layers=1):
         f"{name}: expected P={len(theta)} at (2 qubits, {layers} layer(s)), "
         f"got {circ.num_parameters}"
     )
-    from dqgp_tpu.ops.statevector import batched_states  # engine entry point
+    from dqgp.ops.statevector import batched_states  # engine entry point
 
     Xarr = jnp.asarray(np.atleast_2d(x), jnp.float64)
     return np.asarray(
@@ -434,7 +434,7 @@ XPAIR = np.array([[0.37], [-0.52]])
 
 def test_fidelity_gram_golden():
     """K_ab = |<psi(x_a)|psi(x_b)>|^2 from the literal-matrix states must
-    match the full fidelity pipeline (states -> MXU-shaped matmul) exactly."""
+    match the full fidelity pipeline (states -> matmul) exactly."""
     th = TH[:3]
     spec = QuantumKernelSpec(
         circuit=build_circuit("hubregtsen", 2, 1, 1), kernel_type="fidelity")

@@ -21,7 +21,7 @@ As in the 2-qubit module, every expected state is a LITERAL matrix product
 exp(-i theta P / 2) expansions, paper order per the citations in
 models/circuits/library.py:14-18 and the reference's family list,
 main.py:68-106). Nothing flows through ops/circuit.py, ops/statevector.py,
-the Pallas kernel, or the C++ oracle. The complex128 pipeline must
+or the C++ oracle. The complex128 pipeline must
 reproduce each state at 1e-12.
 
 A final discriminating-power test proves the goldens would actually catch
@@ -36,7 +36,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from dqgp_tpu.models.circuits import build_circuit
+from dqgp.models.circuits import build_circuit
 
 ATOL = 1e-12
 
@@ -129,7 +129,7 @@ def pipeline_state(name, theta, x=X0, d=1, layers=1):
         f"{name}: expected P={len(theta)} at (3 qubits, {layers} layer(s)), "
         f"got {circ.num_parameters}"
     )
-    from dqgp_tpu.ops.statevector import batched_states
+    from dqgp.ops.statevector import batched_states
 
     Xarr = jnp.asarray(np.atleast_2d(x), jnp.float64)
     return np.asarray(

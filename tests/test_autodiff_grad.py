@@ -7,9 +7,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels import QuantumKernelSpec, gram
-from dqgp_tpu.parallel.consensus import _agent_local
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels import QuantumKernelSpec, gram
+from dqgp.parallel.consensus import _agent_local
 
 
 def _setup():

@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.gp.posterior import predict_quantum_gp
-from dqgp_tpu.models.kernels import QuantumKernelSpec
-from dqgp_tpu.models.kernels.quantum_kernel import gram_from_features, kernel_features
-from dqgp_tpu.parallel.blocked import cg_solve, gp_posterior_large, gram_matvec
+from dqgp.models.circuits import build_circuit
+from dqgp.models.gp.posterior import predict_quantum_gp
+from dqgp.models.kernels import QuantumKernelSpec
+from dqgp.models.kernels.quantum_kernel import gram_from_features, kernel_features
+from dqgp.parallel.blocked import cg_solve, gp_posterior_large, gram_matvec
 
 
 def _setup(kernel_type="projected", N=70, seed=0):
@@ -68,8 +68,8 @@ def test_large_posterior_matches_dense_cholesky():
 
 @pytest.mark.slow
 def test_gram_free_blocked_cholesky_matches_dense():
-    from dqgp_tpu.parallel.blocked import gram_free_blocked_cholesky, nll_large
-    from dqgp_tpu.models.gp.posterior import masked_nll_and_grad
+    from dqgp.parallel.blocked import gram_free_blocked_cholesky, nll_large
+    from dqgp.models.gp.posterior import masked_nll_and_grad
 
     spec, X, theta, F, Y = _setup(N=75, seed=5)
     F64 = F.astype(jnp.float64)
@@ -93,7 +93,7 @@ def test_gram_free_blocked_cholesky_matches_dense():
 
 @pytest.mark.slow
 def test_pivoted_cholesky_approximates_gram():
-    from dqgp_tpu.parallel.blocked import pivoted_cholesky
+    from dqgp.parallel.blocked import pivoted_cholesky
 
     spec, X, theta, F, Y = _setup(N=60, seed=9)
     F64 = F.astype(jnp.float64)
@@ -108,7 +108,7 @@ def test_pivoted_cholesky_approximates_gram():
 
 @pytest.mark.slow
 def test_preconditioned_cg_converges_faster():
-    from dqgp_tpu.parallel.blocked import (
+    from dqgp.parallel.blocked import (
         cg_solve, gram_matvec, pivoted_cholesky, woodbury_preconditioner,
     )
 
@@ -139,10 +139,10 @@ def test_predict_quantum_gp_large_matches_dense():
     --predict-cg-threshold)."""
     import jax.numpy as jnp
 
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.gp.posterior import predict_quantum_gp
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
-    from dqgp_tpu.parallel.blocked import predict_quantum_gp_large
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.gp.posterior import predict_quantum_gp
+    from dqgp.models.kernels import QuantumKernelSpec
+    from dqgp.parallel.blocked import predict_quantum_gp_large
 
     spec = QuantumKernelSpec(
         circuit=build_circuit("hubregtsen", 3, 2, 1),
@@ -170,10 +170,10 @@ def test_predict_quantum_gp_large_fidelity():
     """Fidelity kernels carry complex features through the CG route."""
     import jax.numpy as jnp
 
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.gp.posterior import predict_quantum_gp
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
-    from dqgp_tpu.parallel.blocked import predict_quantum_gp_large
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.gp.posterior import predict_quantum_gp
+    from dqgp.models.kernels import QuantumKernelSpec
+    from dqgp.parallel.blocked import predict_quantum_gp_large
 
     spec = QuantumKernelSpec(
         circuit=build_circuit("yz_cx", 3, 2, 1), kernel_type="fidelity")
@@ -205,8 +205,8 @@ def test_lowrank_regularizer_matches_dense_on_indefinite_matrix(method):
     (to eigensolver tolerance) when the clip rank covers the negative
     spectrum — verified on a synthetic symmetric matrix with a known
     2-eigenvalue negative part."""
-    from dqgp_tpu.models.kernels.quantum_kernel import regularize_gram
-    from dqgp_tpu.parallel.blocked import make_lowrank_regularizer_from_matvec
+    from dqgp.models.kernels.quantum_kernel import regularize_gram
+    from dqgp.parallel.blocked import make_lowrank_regularizer_from_matvec
 
     rng = np.random.RandomState(0)
     n = 64
@@ -241,7 +241,7 @@ def test_cg_predictor_honors_regularization():
         kernel_type="projected", outer_kernel="matern",
         regularization="thresholding",
     )
-    from dqgp_tpu.parallel.blocked import predict_quantum_gp_large
+    from dqgp.parallel.blocked import predict_quantum_gp_large
 
     rng = np.random.RandomState(2)
     Xtr = rng.uniform(-0.9, 0.9, (128, 2))
@@ -264,8 +264,8 @@ def test_cg_predictor_honors_regularization():
 def test_nll_large_honors_regularization():
     """nll_large with spec.regularization must match the dense NLL computed
     on the regularize_gram'ed Gram."""
-    from dqgp_tpu.models.gp.posterior import masked_nll_core
-    from dqgp_tpu.parallel.blocked import nll_large
+    from dqgp.models.gp.posterior import masked_nll_core
+    from dqgp.parallel.blocked import nll_large
 
     spec = QuantumKernelSpec(
         circuit=build_circuit("hubregtsen", 3, 2, 1),
@@ -306,7 +306,7 @@ def test_sharded_lowrank_regularizer_matches_single_chip():
     if len(_jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from dqgp_tpu.parallel.blocked import (
+    from dqgp.parallel.blocked import (
         make_lowrank_regularizer,
         make_sharded_lowrank_regularizer,
     )

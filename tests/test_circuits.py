@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.models.circuits import ENCODING_TYPES, build_circuit
-from dqgp_tpu.ops import statevector as sv
+from dqgp.models.circuits import ENCODING_TYPES, build_circuit
+from dqgp.ops import statevector as sv
 
 
 @pytest.mark.parametrize("enc", ENCODING_TYPES)

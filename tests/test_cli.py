@@ -10,7 +10,7 @@ import pytest
 
 @pytest.mark.slow
 def test_cli_quantum_end_to_end(tmp_path):
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     mj = str(tmp_path / "m.json")
     s = main([
@@ -29,7 +29,7 @@ def test_cli_quantum_end_to_end(tmp_path):
 
 
 def test_cli_classical_fidelity(tmp_path):
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     s = main([
         "--classical-dataset", "--input-dim", "1", "--n-dataset", "30",
@@ -42,7 +42,7 @@ def test_cli_classical_fidelity(tmp_path):
 
 
 def test_cli_dataset_only_and_save(tmp_path):
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     os.chdir(tmp_path)
     s = main([
@@ -56,7 +56,7 @@ def test_cli_dataset_only_and_save(tmp_path):
 
 @pytest.mark.slow
 def test_cli_plots_written(tmp_path):
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     out = str(tmp_path / "res")
     main([
@@ -85,7 +85,7 @@ def test_graft_entry():
 
 
 def test_agent_facade_matches_reference_surface():
-    from dqgp_tpu.agent import RiemannianAgent
+    from dqgp.agent import RiemannianAgent
 
     rng = np.random.RandomState(0)
     X = rng.uniform(-0.9, 0.9, (12, 2))
@@ -109,7 +109,7 @@ def test_agent_facade_matches_reference_surface():
 
 @pytest.mark.slow
 def test_cli_multi_pauli_measurement():
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     s = main([
         "--input-dim", "1", "--n-dataset", "24", "--encoding", "yz_cx",
@@ -122,7 +122,7 @@ def test_cli_multi_pauli_measurement():
 
 @pytest.mark.slow
 def test_cli_autodiff_grad_method():
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     s = main([
         "--input-dim", "1", "--n-dataset", "24", "--encoding", "hubregtsen",
@@ -138,7 +138,7 @@ def test_cli_cg_prediction_route_matches_dense():
     """--predict-cg-threshold below n_train routes the final predict through
     the matrix-free CG posterior (cli.py large_n branch); its predictions
     must match the dense-posterior route on the same trained run."""
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     base = [
         "--input-dim", "2", "--n-dataset", "48", "--encoding", "hubregtsen",
@@ -157,7 +157,7 @@ def test_cli_cg_prediction_route_matches_dense():
 
 
 def test_cli_rejects_bad_test_split():
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     with pytest.raises(ValueError, match="test_split"):
         main(["--classical-dataset", "--input-dim", "1", "--n-dataset", "20",
@@ -168,7 +168,7 @@ def test_cli_flag_inventory_stable():
     """The reference-parity flag surface (~48 reference flags + documented
     additions) must not silently lose flags. Judge-diffed against
     main.py:1929-2043 in round 1; this pins the inventory."""
-    from dqgp_tpu.cli import build_parser
+    from dqgp.cli import build_parser
 
     flags = {a.option_strings[0] for a in build_parser()._actions
              if a.option_strings} - {"-h"}
@@ -218,3 +218,57 @@ def test_example_scale_out_training_runs(tmp_path):
     )
     assert r.returncode == 0, r.stderr[-800:]
     assert "iteration 1" in r.stdout
+
+
+_BLOCK_IMPORTS = """
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("sklearn", "matplotlib"):
+            raise ImportError(f"blocked import: {name}")
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def _run_blocked(code, tmp_path):
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.run([sys.executable, "-c", _BLOCK_IMPORTS + code],
+                          env=env, cwd=str(tmp_path), capture_output=True,
+                          text=True, timeout=600)
+
+
+def test_cli_runs_without_sklearn_or_matplotlib(tmp_path):
+    """The training path and the CLI need nothing beyond jax, numpy and the
+    standard library: with sklearn and matplotlib unimportable, a --no-plot
+    run (split, CV folds, training, prediction) completes."""
+    r = _run_blocked(
+        "from dqgp.cli import main\n"
+        "s = main(['--input-dim', '2', '--n-dataset', '30', '--encoding',\n"
+        "          'hubregtsen', '--kernel-type', 'projected', '--num-qubits',\n"
+        "          '2', '--num-layers', '1', '--outer-kernel', 'matern',\n"
+        "          '--n-agents', '2', '--max-iter', '1', '--cv-folds', '3',\n"
+        "          '--data-seed', '1', '--no-plot', '--quiet'])\n"
+        "import math\n"
+        "assert math.isfinite(s['test_metrics']['nlpd'])\n"
+        "assert not any(m.split('.')[0] in ('sklearn', 'matplotlib')\n"
+        "               for m in sys.modules)\n"
+        "print('NO_SKLEARN_OK')\n", tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "NO_SKLEARN_OK"
+
+
+def test_cli_plot_without_matplotlib_names_no_plot(tmp_path):
+    r = _run_blocked(
+        "from dqgp.cli import main\n"
+        "try:\n"
+        "    main(['--n-dataset', '8', '--num-qubits', '2', '--num-layers',\n"
+        "          '1', '--dataset-only', '--quiet'])\n"
+        "except ImportError as e:\n"
+        "    assert '--no-plot' in str(e), e\n"
+        "    print('CLEAR_ERROR')\n", tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "CLEAR_ERROR"

@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu import manifold as M
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.gp.posterior import masked_nll_and_grad
-from dqgp_tpu.models.kernels import QuantumKernelSpec, gram_and_shift_grads
-from dqgp_tpu.parallel import (
+from dqgp import manifold as M
+from dqgp.models.circuits import build_circuit
+from dqgp.models.gp.posterior import masked_nll_and_grad
+from dqgp.models.kernels import QuantumKernelSpec, gram_and_shift_grads
+from dqgp.parallel import (
     agents_mesh,
     make_admm_step,
     make_agent_batch,
 )
-from dqgp_tpu.parallel.consensus import shard_batch_to_mesh
+from dqgp.parallel.consensus import shard_batch_to_mesh
 
 
 def _setup(n_agents=8, n_per=6, seed=0):

@@ -7,7 +7,7 @@ import sys
 import numpy as np
 import pytest
 
-from dqgp_tpu.data import (
+from dqgp.data import (
     generate_data_numpy,
     generate_quantum_gp_data,
     load_real_world_dataset,
@@ -16,8 +16,8 @@ from dqgp_tpu.data import (
     save_quantum_dataset,
     split_data_numpy,
 )
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels import QuantumKernelSpec
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels import QuantumKernelSpec
 
 
 def test_split_regional_1d_sorted():
@@ -178,7 +178,7 @@ def test_all_four_srtm_regions_loadable():
     (scripts/make_synthetic_tiles.py — self-provisioned here, since
     srtm_data/ is gitignored), exercising the size-sniffing branch of
     read_hgt_file."""
-    from dqgp_tpu.data.real_world import SRTM_REGIONS, load_srtm_elevation_dataset
+    from dqgp.data.real_world import SRTM_REGIONS, load_srtm_elevation_dataset
 
     REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -203,7 +203,7 @@ def test_all_four_srtm_regions_loadable():
 def test_regional_partition_accepts_1d_x():
     """(N,) and (N, 1) inputs must give identical regional splits (the other
     partition methods already accept both shapes)."""
-    from dqgp_tpu.data.partition import split_data_numpy
+    from dqgp.data.partition import split_data_numpy
 
     rng = np.random.RandomState(3)
     x = rng.uniform(0, 1, 40)
@@ -223,8 +223,8 @@ def test_grid_region_panel_matches_partition():
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from dqgp_tpu.data.partition import split_data_numpy
-    from dqgp_tpu.utils.plotting import _grid_region_panel
+    from dqgp.data.partition import split_data_numpy
+    from dqgp.utils.plotting import _grid_region_panel
 
     rng = np.random.RandomState(5)
     X = rng.uniform(0, 1, (400, 2))

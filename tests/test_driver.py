@@ -6,11 +6,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.data import generate_quantum_gp_data, split_data_numpy
-from dqgp_tpu.driver import TrainConfig, init_admm_state, load_checkpoint, train
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.gp import evaluate_predictions, predict_quantum_gp
-from dqgp_tpu.models.kernels import QuantumKernelSpec
+from dqgp.data import generate_quantum_gp_data, split_data_numpy
+from dqgp.driver import TrainConfig, init_admm_state, load_checkpoint, train
+from dqgp.models.circuits import build_circuit
+from dqgp.models.gp import evaluate_predictions, predict_quantum_gp
+from dqgp.models.kernels import QuantumKernelSpec
 
 
 def _make_problem(n=48, seed=42):
@@ -102,7 +102,7 @@ def test_ground_truth_recovery_small():
     runtime oracle (main.py:2736-2757)."""
     spec, X, Y, gt = _make_problem(n=40, seed=7)
     splits = split_data_numpy(X, Y, 2, "random", random_seed=7)
-    from dqgp_tpu import manifold as M
+    from dqgp import manifold as M
 
     theta0, psi0, z0 = init_admm_state(2, spec.num_parameters, 7, 100.0)
     initial_err = float(M.distance(jnp.asarray(z0), jnp.asarray(gt)))
@@ -242,8 +242,8 @@ def test_host_cond_chunk_boundary():
     """host_condition_numbers chunks the iteration axis (CHUNK=16); T=18
     crosses a chunk boundary and the padded tail rows must not leak into
     the output. Direct comparison against unchunked per-row f64 conds."""
-    from dqgp_tpu.driver import host_condition_numbers
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.driver import host_condition_numbers
+    from dqgp.models.kernels.quantum_kernel import gram
 
     spec, X, Y, gt = _make_problem(n=24)
     splits = split_data_numpy(X, Y, 2, "sequential")
@@ -281,8 +281,8 @@ def test_host_cond_f64_resolves_beyond_f32_floor():
     VERDICT weak #5). Near-duplicate inputs make the true Gram nearly
     rank-deficient: the tiny eigenvalues are O(dx^2) ~ 1e-14 relative,
     representable in f64 but pure noise at f32 entry accuracy."""
-    from dqgp_tpu.driver import host_condition_numbers
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.driver import host_condition_numbers
+    from dqgp.models.kernels.quantum_kernel import gram
 
     spec = QuantumKernelSpec(
         circuit=build_circuit("hubregtsen", 2, 2, 1),
@@ -316,7 +316,7 @@ def test_host_cond_f64_resolves_beyond_f32_floor():
 def test_gram_f64_dtype_and_agreement():
     """gram(..., dtype=float64) returns a float64 Gram that agrees with the
     f32 production path to f32 accuracy (same physics, higher precision)."""
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.models.kernels.quantum_kernel import gram
 
     for ktype in ("projected", "fidelity"):
         spec = QuantumKernelSpec(
@@ -346,23 +346,46 @@ def test_cond_mode_rejects_unknown_values():
                           cond_mode="Host"))
 
 
-def test_device_cond_on_f32_accelerator_warns(capsys):
-    """cond_mode="device" on an accelerator backend prints the
-    cond-saturation warning (VERDICT r4 weak #4: accelerator Grams are
-    f32-built, flooring resolvable cond at ~1e7-1e8, so bucket values would
-    be lower bounds); the CPU backend and the host/off modes stay silent."""
-    from dqgp_tpu.driver import _warn_device_cond_floor
+def test_device_cond_on_f32_accelerator_warns(monkeypatch):
+    """cond_mode="device" conditions a Gram built in the training step's
+    dtype (f32 statevectors), which floors resolvable cond at ~1e7-1e8 — so
+    the driver warns, keyed to that dtype (not the backend), once per
+    process; host/off modes and an f64-built Gram stay silent."""
+    import warnings
 
-    _warn_device_cond_floor("device", "tpu")
-    assert "saturate" in capsys.readouterr().out
-    for mode, backend in (("device", "cpu"), ("host", "tpu"), ("off", "tpu")):
-        _warn_device_cond_floor(mode, backend)
-        assert capsys.readouterr().out == ""
+    import dqgp.driver as drv
 
-    # integration: a real device-mode CPU training run emits no warning
+    monkeypatch.setattr(drv, "_cond_floor_warned", False)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        for mode, dt in (("host", jnp.float32), ("off", jnp.float32),
+                         ("device", jnp.float64)):
+            drv._warn_device_cond_floor(mode, dt)
+        assert not rec
+        drv._warn_device_cond_floor("device", jnp.float32)
+        drv._warn_device_cond_floor("device", jnp.float32)
+    assert len(rec) == 1 and "saturate" in str(rec[0].message)
+
+    # integration: a real device-mode training run warns through
+    # warnings.warn (once per process), pointing at the caller
+    monkeypatch.setattr(drv, "_cond_floor_warned", False)
     spec, X, Y, gt = _make_problem(n=16)
     splits = split_data_numpy(X, Y, 2, "sequential")
-    train(spec, splits, X, Y,
-          TrainConfig(max_iter=1, cv_folds=2, verbose=False,
-                      cond_mode="device"))
-    assert "saturate" not in capsys.readouterr().out
+    with pytest.warns(UserWarning, match="saturate"):
+        train(spec, splits, X, Y,
+              TrainConfig(max_iter=1, cv_folds=2, verbose=False,
+                          cond_mode="device"))
+
+
+def test_host_cond_without_cpu_backend_says_how(monkeypatch):
+    """cond_mode='host' needs the CPU backend; a process without it (e.g.
+    JAX_PLATFORMS=cuda) gets a clear error before training, not an opaque
+    one after it."""
+    import dqgp.driver as drv
+
+    def no_cpu(backend=None):
+        raise RuntimeError(f"Unknown backend {backend}")
+
+    monkeypatch.setattr(drv.jax, "devices", no_cpu)
+    with pytest.raises(RuntimeError, match="cuda,cpu"):
+        drv.host_cpu_device()

@@ -5,14 +5,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.gp import (
+from dqgp.models.circuits import build_circuit
+from dqgp.models.gp import (
     evaluate_predictions,
     k_fold_cross_validation_consensus,
     predict_quantum_gp,
 )
-from dqgp_tpu.models.gp.posterior import gp_posterior_from_grams, masked_nll_and_grad
-from dqgp_tpu.models.kernels import QuantumKernelSpec, gram, gram_and_shift_grads
+from dqgp.models.gp.posterior import gp_posterior_from_grams, masked_nll_and_grad
+from dqgp.models.kernels import QuantumKernelSpec, gram, gram_and_shift_grads
 
 
 def _spec(kernel_type="projected", **kw):
@@ -138,7 +138,7 @@ def test_cv_consensus_runs_and_scores():
 def test_cv_matches_unbatched_predict():
     """Fold NLPD from the vmapped CV path == naive per-fold predict path."""
     from sklearn.model_selection import KFold
-    from dqgp_tpu.models.gp.metrics import nlpd
+    from dqgp.models.gp.metrics import nlpd
 
     spec = _spec()
     X, Y, theta = _toy(N=25, seed=4)
@@ -190,7 +190,7 @@ def _ill_conditioned(n: int = 64, cond: float = 1e13) -> np.ndarray:
 def test_condition_number_resolves_moderate_bucket_eigh():
     """cond ~ 1e13 must land between the reference's 1e12/1e15 buckets
     (main.py:2629-2642) — impossible with an f32 eigendecomposition."""
-    from dqgp_tpu.ops.linalg import condition_number
+    from dqgp.ops.linalg import condition_number
 
     A = _ill_conditioned(cond=1e13)
     c = float(condition_number(jnp.asarray(A, jnp.float64), method="eigh"))
@@ -199,8 +199,8 @@ def test_condition_number_resolves_moderate_bucket_eigh():
 
 
 def test_condition_number_iterative_matches():
-    """The TPU-path (power + inverse iteration) must bucket identically."""
-    from dqgp_tpu.ops.linalg import condition_number
+    """The iterative path (power + inverse iteration) must bucket identically."""
+    from dqgp.ops.linalg import condition_number
 
     for target in (1e6, 1e13):
         A = _ill_conditioned(cond=target)
@@ -213,7 +213,7 @@ def test_condition_number_iterative_matches():
 
 
 def test_condition_number_iterative_indefinite_is_inf():
-    from dqgp_tpu.ops.linalg import condition_number
+    from dqgp.ops.linalg import condition_number
 
     A = np.diag(np.array([1.0, -1.0, 2.0]))
     c = float(condition_number(jnp.asarray(A, jnp.float64), method="iterative"))

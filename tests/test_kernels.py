@@ -5,20 +5,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels import (
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels import (
     QuantumKernelSpec,
     create_quantum_kernel,
     gram,
     gram_and_shift_grads,
 )
-from dqgp_tpu.models.kernels.outer import outer_gram
-from dqgp_tpu.models.kernels.quantum_kernel import (
+from dqgp.models.kernels.outer import outer_gram
+from dqgp.models.kernels.quantum_kernel import (
     kernel_features,
     regularize_gram,
     shift_parameter_batch,
 )
-from dqgp_tpu.ops import statevector as sv
+from dqgp.ops import statevector as sv
 
 
 def _spec(kernel_type="fidelity", enc="yz_cx", n=3, d=2, layers=1, **kw):
@@ -150,7 +150,7 @@ def test_quantum_kernel_facade():
 def test_evaluate_value_equal_inputs_regularized():
     """evaluate(X, X.copy()) must take the symmetric (regularized) path when
     the spec carries regularization — squlearn regularizes square Grams."""
-    from dqgp_tpu.models.kernels import create_quantum_kernel
+    from dqgp.models.kernels import create_quantum_kernel
 
     k = create_quantum_kernel(3, 2, 1, encoding_type="hubregtsen",
                               kernel_type="projected",
@@ -166,7 +166,7 @@ def test_evaluate_value_equal_inputs_regularized():
 def test_evaluate_derivatives_rejects_cross_inputs():
     """evaluate_derivatives only has the symmetric case; a different XB must
     raise rather than silently return the (wrong-shape) symmetric answer."""
-    from dqgp_tpu.models.kernels.quantum_kernel import QuantumKernel
+    from dqgp.models.kernels.quantum_kernel import QuantumKernel
 
     spec = _spec("projected")
     qk = QuantumKernel(spec)
@@ -183,9 +183,9 @@ def test_measurement_validation_at_construction():
     """Bad measurements fail with a clear ValueError when the spec is built,
     not a KeyError inside a jit trace; full Pauli strings must span exactly
     num_qubits and cannot be mixed with single-char per-qubit blocks."""
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
-    from dqgp_tpu.models.kernels.quantum_kernel import kernel_features
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.kernels import QuantumKernelSpec
+    from dqgp.models.kernels.quantum_kernel import kernel_features
 
     circ = build_circuit("hubregtsen", 2, 2, 1)
 
@@ -222,9 +222,9 @@ def test_full_parity_surface_grams_psd():
     multi-dimensional features are indefinite in sklearn too — verified
     eig_min -0.92 matches sklearn to 1e-5; that is exactly why the
     regularization options exist)."""
-    from dqgp_tpu.models.circuits import ENCODING_TYPES, build_circuit
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.models.circuits import ENCODING_TYPES, build_circuit
+    from dqgp.models.kernels import QuantumKernelSpec
+    from dqgp.models.kernels.quantum_kernel import gram
 
     rng = np.random.RandomState(0)
     X = jnp.asarray(rng.uniform(-0.9, 0.9, (12, 2)), jnp.float32)

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu import manifold as M
+from dqgp import manifold as M
 
 
 def ref_circular_mean(angles, period=np.pi):

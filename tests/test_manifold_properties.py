@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from dqgp_tpu import manifold as M
+from dqgp import manifold as M
 
 angles = st.floats(min_value=-50.0, max_value=50.0,
                    allow_nan=False, allow_infinity=False)
@@ -114,8 +114,8 @@ def test_all_encodings_preserve_norm(seed):
     """Every gate in the IR is unitary, so |psi(x, theta)|_2 == 1 for every
     encoding family, input, and parameter draw — the invariant behind
     fidelity-Gram diag == 1 and projected features in [-1, 1]."""
-    from dqgp_tpu.models.circuits import ENCODING_TYPES, build_circuit
-    from dqgp_tpu.ops.statevector import angle_matrix, state_from_angles
+    from dqgp.models.circuits import ENCODING_TYPES, build_circuit
+    from dqgp.ops.statevector import angle_matrix, state_from_angles
 
     rng = np.random.RandomState(seed % (2**31 - 1))
     enc = ENCODING_TYPES[seed % len(ENCODING_TYPES)]

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.ops.linalg import solve_psd_mixed, solve_psd_with_fallback
+from dqgp.ops.linalg import solve_psd_mixed, solve_psd_with_fallback
 
 
 def _spd(n, cond, seed=0):
@@ -65,9 +65,9 @@ def test_mixed_indefinite_reaches_pinv_rescue():
 
 
 def test_split_f64_matvec_accuracy():
-    """split_f64_matvec (three f32 MXU products) matches the f64 product to
+    """split_f64_matvec (three f32 products) matches the f64 product to
     the documented ~sqrt(N)*eps_f32 cancellation floor."""
-    from dqgp_tpu.ops.linalg import split_f64_matvec
+    from dqgp.ops.linalg import split_f64_matvec
 
     rng = np.random.RandomState(6)
     A = jnp.asarray(rng.randn(300, 200) * (1 + rng.rand(300, 200)))
@@ -130,9 +130,9 @@ def test_mixed_f32_input_passthrough():
 
 
 def _mini_problem():
-    from dqgp_tpu.data import generate_quantum_gp_data, split_data_numpy
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
+    from dqgp.data import generate_quantum_gp_data, split_data_numpy
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.kernels import QuantumKernelSpec
 
     spec = QuantumKernelSpec(
         circuit=build_circuit("hubregtsen", 3, 2, 1),
@@ -161,8 +161,8 @@ def test_admm_trajectory_mixed_equals_float64():
     horizon (they are re-derived from the wrapped manifold state, magnitude
     < pi, where boundary discrimination is ~1e-8 relative - comfortably inside
     mixed accuracy)."""
-    from dqgp_tpu.driver import init_admm_state
-    from dqgp_tpu.parallel import make_admm_step, make_agent_batch
+    from dqgp.driver import init_admm_state
+    from dqgp.parallel import make_admm_step, make_agent_batch
 
     spec, X, Y, splits = _mini_problem()
     batch = make_agent_batch(splits)
@@ -197,8 +197,8 @@ def test_admm_trajectory_mixed_equals_float64():
 
 @pytest.mark.slow
 def test_streamed_mixed_matches_central_float64():
-    from dqgp_tpu.driver import init_admm_state
-    from dqgp_tpu.parallel import make_admm_step, make_agent_batch
+    from dqgp.driver import init_admm_state
+    from dqgp.parallel import make_admm_step, make_agent_batch
 
     spec, X, Y, splits = _mini_problem()
     batch = make_agent_batch(splits)
@@ -214,7 +214,7 @@ def test_streamed_mixed_matches_central_float64():
 
 
 def test_cv_mixed_matches_float64():
-    from dqgp_tpu.models.gp.cv import k_fold_cross_validation_consensus
+    from dqgp.models.gp.cv import k_fold_cross_validation_consensus
 
     spec, X, Y, _ = _mini_problem()
     theta = jnp.asarray(np.random.RandomState(7).uniform(0, np.pi,
@@ -238,7 +238,7 @@ def test_cv_mixed_rescores_flagged_folds_in_float64():
     duplicated rows + tiny noise) must NOT score +inf under cv_dtype='mixed'
     when f64 would succeed — they are re-scored through the float64 path so
     model selection matches the reference's f64 CV."""
-    from dqgp_tpu.models.gp.cv import (
+    from dqgp.models.gp.cv import (
         _cv_fold_scores,
         k_fold_cross_validation_consensus,
         kfold_pad_indices,
@@ -276,8 +276,8 @@ def test_2d_mesh_mixed_matches_float64():
     n_dev = len(jax.devices())
     if n_dev < 4:
         pytest.skip("needs 4 virtual devices")
-    from dqgp_tpu.driver import init_admm_state
-    from dqgp_tpu.parallel import (
+    from dqgp.driver import init_admm_state
+    from dqgp.parallel import (
         agents_data_mesh, make_admm_step_2d, make_agent_batch,
         shard_batch_to_mesh_2d,
     )
@@ -311,7 +311,7 @@ def test_driver_retries_flagged_mixed_iteration():
     """An (effectively) singular agent system defeats the f32 refinement;
     the driver must transparently redo the iteration in float64 and produce
     the float64 run's exact trajectory."""
-    from dqgp_tpu.driver import train, TrainConfig
+    from dqgp.driver import train, TrainConfig
 
     spec, X, Y, splits = _mini_problem()
     # duplicate every row within each agent shard -> rank-deficient Grams;
@@ -346,7 +346,7 @@ def test_chained_driver_retries_flagged_mixed_iteration():
     rest of its chunk (NaN theta/psi propagate through the scan), so the
     driver must truncate the chunk at the flagged row, redo it in float64
     from the pre-row state, and resume chunking from the corrected state."""
-    from dqgp_tpu.driver import train, TrainConfig
+    from dqgp.driver import train, TrainConfig
 
     spec, X, Y, splits = _mini_problem()
     splits_dup = [(np.concatenate([Xi, Xi]), np.concatenate([Yi, Yi]))
@@ -378,7 +378,7 @@ def test_chained_driver_retries_flagged_mixed_iteration():
 def test_history_rows_tagged_with_resolved_solver():
     """Un-flagged runs: every nll row carries the resolved gp_dtype and every
     cv row the resolved cv_dtype (auto -> float64 on the CPU test backend)."""
-    from dqgp_tpu.driver import train, TrainConfig
+    from dqgp.driver import train, TrainConfig
 
     spec, X, Y, splits = _mini_problem()
     res = train(spec, splits, X, Y,
@@ -394,7 +394,7 @@ def test_flag_solvers_ignore_caller_fallback():
     fallback=True (a plain keyword that would override a functools.partial
     binding) must NOT re-enable the in-program rescue of a '-flag' solver —
     under vmap the rescue branch would execute on every call."""
-    from dqgp_tpu.ops.linalg import get_psd_solver
+    from dqgp.ops.linalg import get_psd_solver
 
     n = 16
     rng = np.random.RandomState(4)
@@ -429,7 +429,7 @@ def test_masked_nll_core_flag_solver_flags_failure():
     """masked_nll_core(solver='direct-flag') with the default fallback=True
     must surface a failed factorization as NaN/chol_ok=False, not rescue it
     in-program (the caller-keyword-overrides-partial trap)."""
-    from dqgp_tpu.models.gp.posterior import masked_nll_core
+    from dqgp.models.gp.posterior import masked_nll_core
 
     n = 16
     rng = np.random.RandomState(9)

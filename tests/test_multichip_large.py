@@ -56,10 +56,10 @@ def test_16dev_uneven_agents_ragged_shards():
     sizes. f64 trajectory must equal the 1-device vmap run exactly."""
     _run_child(16, """
         assert len(jax.devices()) == 16
-        from dqgp_tpu.data import split_data_numpy
-        from dqgp_tpu.driver import TrainConfig, train
-        from dqgp_tpu.models.circuits import build_circuit
-        from dqgp_tpu.models.kernels import QuantumKernelSpec
+        from dqgp.data import split_data_numpy
+        from dqgp.driver import TrainConfig, train
+        from dqgp.models.circuits import build_circuit
+        from dqgp.models.kernels import QuantumKernelSpec
 
         spec = QuantumKernelSpec(
             circuit=build_circuit("hubregtsen", 2, 2, 1),
@@ -94,10 +94,10 @@ def test_32dev_2d_mesh_ragged_per_agent_shards():
     equal the single-device run."""
     _run_child(32, """
         assert len(jax.devices()) == 32
-        from dqgp_tpu.data import split_data_numpy
-        from dqgp_tpu.driver import TrainConfig, train
-        from dqgp_tpu.models.circuits import build_circuit
-        from dqgp_tpu.models.kernels import QuantumKernelSpec
+        from dqgp.data import split_data_numpy
+        from dqgp.driver import TrainConfig, train
+        from dqgp.models.circuits import build_circuit
+        from dqgp.models.kernels import QuantumKernelSpec
 
         spec = QuantumKernelSpec(
             circuit=build_circuit("hubregtsen", 2, 2, 1),
@@ -125,12 +125,12 @@ def test_32dev_distributed_cholesky_ragged_blocks():
     _run_child(32, """
         assert len(jax.devices()) == 32
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-        from dqgp_tpu.models.circuits import build_circuit
-        from dqgp_tpu.models.gp.posterior import masked_nll_and_grad
-        from dqgp_tpu.models.kernels import QuantumKernelSpec
-        from dqgp_tpu.models.kernels.quantum_kernel import (
+        from dqgp.models.circuits import build_circuit
+        from dqgp.models.gp.posterior import masked_nll_and_grad
+        from dqgp.models.kernels import QuantumKernelSpec
+        from dqgp.models.kernels.quantum_kernel import (
             gram_from_features, kernel_features)
-        from dqgp_tpu.parallel.blocked import (
+        from dqgp.parallel.blocked import (
             make_distributed_cholesky_nll, pad_rows_for_distributed)
 
         spec = QuantumKernelSpec(

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.models.circuits import ENCODING_TYPES, build_circuit
-from dqgp_tpu.ops import statevector as sv
-from dqgp_tpu.ops import qsim_native
+from dqgp.models.circuits import ENCODING_TYPES, build_circuit
+from dqgp.ops import statevector as sv
+from dqgp.ops import qsim_native
 
 
 needs_native = pytest.mark.skipif(
@@ -71,7 +71,7 @@ def test_cpp_pauli_features_match():
 
 @needs_native
 def test_native_hgt_matches_numpy(tmp_path):
-    from dqgp_tpu.data.hgt_native import read_hgt
+    from dqgp.data.hgt_native import read_hgt
 
     n = 1201
     rng = np.random.RandomState(0)
@@ -89,7 +89,7 @@ def test_facade_f64_matches_cpp_oracle():
     from the C++ double-precision oracle's statevectors agrees at 1e-12
     (the squlearn surface it mirrors is genuinely f64 qiskit-aer,
     agent_riemannian.py:114-119)."""
-    from dqgp_tpu.models.kernels.quantum_kernel import create_quantum_kernel
+    from dqgp.models.kernels.quantum_kernel import create_quantum_kernel
 
     qk = create_quantum_kernel(3, num_features=2, num_layers=2,
                                encoding_type="yz_cx", kernel_type="fidelity")
@@ -117,7 +117,7 @@ def test_facade_f64_derivatives_match_cpp_oracle():
     """evaluate_derivatives in the f64 facade: K and every central-difference
     dK/dp agree with a from-scratch numpy-f64 construction through the C++
     oracle at 1e-10 (matches agent_riemannian.py:247-275 semantics)."""
-    from dqgp_tpu.models.kernels.quantum_kernel import create_quantum_kernel
+    from dqgp.models.kernels.quantum_kernel import create_quantum_kernel
 
     qk = create_quantum_kernel(2, num_features=1, num_layers=1,
                                encoding_type="hubregtsen", kernel_type="fidelity")

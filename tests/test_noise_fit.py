@@ -10,9 +10,9 @@ docs/PERFORMANCE.md's calibration section.
 import numpy as np
 import pytest
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels import QuantumKernelSpec
-from dqgp_tpu.models.gp import fit_noise_std
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels import QuantumKernelSpec
+from dqgp.models.gp import fit_noise_std
 
 
 def _spec(qubits=2, d=1, layers=1):
@@ -26,7 +26,7 @@ def test_fit_recovers_generating_noise():
     """Data sampled from the quantum-GP prior with known sigma: the MLL
     optimum at the GENERATING parameters must land near sigma (the estimator
     is consistent; at N=300 its stderr is ~sigma/sqrt(2N) ~ 3%)."""
-    from dqgp_tpu.data import generate_quantum_gp_data
+    from dqgp.data import generate_quantum_gp_data
 
     spec = _spec()
     sigma = 0.3
@@ -42,7 +42,7 @@ def test_fit_recovers_generating_noise():
 def test_fit_detects_gross_misspecification():
     """Y with much larger noise than the default 0.1: the fit must move up
     and improve the marginal likelihood decisively."""
-    from dqgp_tpu.data import generate_quantum_gp_data
+    from dqgp.data import generate_quantum_gp_data
 
     spec = _spec()
     X, Y, theta_star = generate_quantum_gp_data(
@@ -54,8 +54,8 @@ def test_fit_detects_gross_misspecification():
 
 
 def test_fit_accepts_precomputed_gram():
-    from dqgp_tpu.data import generate_quantum_gp_data
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.data import generate_quantum_gp_data
+    from dqgp.models.kernels.quantum_kernel import gram
 
     import jax.numpy as jnp
 
@@ -79,7 +79,7 @@ def test_cli_fit_noise_and_predictive_noise(tmp_path):
     --predictive-noise scores observed-Y variance; summary records both.
     Data generated with sigma=0.5 but the CLI told 0.1 — coverage must
     improve over the misspecified parity run."""
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     common = [
         "--input-dim", "1", "--n-dataset", "120", "--encoding", "hubregtsen",
@@ -108,7 +108,7 @@ def test_cli_fit_noise_subsample_cap(tmp_path):
     seeded subsample (forced cheaply here by shrinking the cap); the fitted
     sigma must still move off the misspecified constant. Also exercises the
     CG-posterior predict with the fitted sigma via --predict-cg-threshold."""
-    from dqgp_tpu.cli import main
+    from dqgp.cli import main
 
     s = main([
         "--input-dim", "1", "--n-dataset", "150", "--encoding", "hubregtsen",

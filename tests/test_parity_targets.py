@@ -49,11 +49,11 @@ def test_targets_cover_baseline_configs(targets):
 def test_config1_small_regression(targets):
     from sklearn.model_selection import train_test_split
 
-    from dqgp_tpu.data import generate_quantum_gp_data, split_data_numpy
-    from dqgp_tpu.driver import TrainConfig, train
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.gp import evaluate_predictions, predict_quantum_gp
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
+    from dqgp.data import generate_quantum_gp_data, split_data_numpy
+    from dqgp.driver import TrainConfig, train
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.gp import evaluate_predictions, predict_quantum_gp
+    from dqgp.models.kernels import QuantumKernelSpec
 
     rec = targets["configs"]["config1_small"]
     c = rec["config"]
@@ -103,12 +103,12 @@ def test_config2_small_srtm_regression(targets):
 
     from sklearn.model_selection import train_test_split
 
-    from dqgp_tpu.data import split_data_numpy
-    from dqgp_tpu.data.real_world import load_srtm_elevation_dataset
-    from dqgp_tpu.driver import TrainConfig, train
-    from dqgp_tpu.models.circuits import build_circuit
-    from dqgp_tpu.models.gp import evaluate_predictions, predict_quantum_gp
-    from dqgp_tpu.models.kernels import QuantumKernelSpec
+    from dqgp.data import split_data_numpy
+    from dqgp.data.real_world import load_srtm_elevation_dataset
+    from dqgp.driver import TrainConfig, train
+    from dqgp.models.circuits import build_circuit
+    from dqgp.models.gp import evaluate_predictions, predict_quantum_gp
+    from dqgp.models.kernels import QuantumKernelSpec
 
     if "config2_small" not in targets["configs"]:
         pytest.skip("config2_small not recorded")

@@ -1,7 +1,7 @@
 """Golden-Gram fixture loader: drop-in verification against the pip reference.
 
 squlearn 0.9.1 is unavailable in this offline environment, so the encoding
-circuits in ``dqgp_tpu/models/circuits/library.py`` are re-derivations
+circuits in ``dqgp/models/circuits/library.py`` are re-derivations
 (SURVEY.md §7 hard-part #1). When Gram matrices recorded from the actual
 reference become available, drop them into ``fixtures/`` as ``.npz`` files
 and this test consumes them with no code changes.
@@ -50,7 +50,7 @@ def _scalar(z, key, default=None):
                                          "(fixtures/*.npz absent)")
 @pytest.mark.parametrize("path", FIXTURES, ids=[os.path.basename(p) for p in FIXTURES])
 def test_gram_matches_reference_fixture(path):
-    from dqgp_tpu.models.kernels import create_quantum_kernel
+    from dqgp.models.kernels import create_quantum_kernel
 
     z = np.load(path, allow_pickle=False)
     kernel = create_quantum_kernel(
@@ -80,7 +80,7 @@ def test_gram_matches_reference_fixture(path):
     # ~1e-12; anything beyond ~1e-7 means a real semantic divergence that
     # the f32 production tolerance above could mask.
     import jax.numpy as jnp
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.models.kernels.quantum_kernel import gram
 
     K64 = np.asarray(gram(kernel.spec, jnp.asarray(z["X"], jnp.float64),
                           jnp.asarray(theta, jnp.float64),

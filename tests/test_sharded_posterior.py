@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.gp.posterior import predict_quantum_gp
-from dqgp_tpu.models.kernels import QuantumKernelSpec
-from dqgp_tpu.models.kernels.quantum_kernel import kernel_features
-from dqgp_tpu.parallel.blocked import make_sharded_posterior
+from dqgp.models.circuits import build_circuit
+from dqgp.models.gp.posterior import predict_quantum_gp
+from dqgp.models.kernels import QuantumKernelSpec
+from dqgp.models.kernels.quantum_kernel import kernel_features
+from dqgp.parallel.blocked import make_sharded_posterior
 
 
 def test_sharded_posterior_matches_dense():
@@ -86,9 +86,9 @@ def test_sharded_posterior_block_streaming_matches_dense():
 
 @pytest.mark.slow
 def test_distributed_cholesky_nll_matches_dense():
-    from dqgp_tpu.parallel.blocked import make_distributed_cholesky_nll
-    from dqgp_tpu.models.gp.posterior import masked_nll_and_grad
-    from dqgp_tpu.models.kernels.quantum_kernel import gram_from_features
+    from dqgp.parallel.blocked import make_distributed_cholesky_nll
+    from dqgp.models.gp.posterior import masked_nll_and_grad
+    from dqgp.models.kernels.quantum_kernel import gram_from_features
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
@@ -160,9 +160,9 @@ def test_distributed_cholesky_nll_honors_regularization():
     """make_distributed_cholesky_nll with tikhonov must match the dense NLL
     on the exactly-regularized Gram (to the regularizer's documented ~1e-4
     eigensolver-tolerance bound)."""
-    from dqgp_tpu.parallel.blocked import make_distributed_cholesky_nll
-    from dqgp_tpu.models.gp.posterior import masked_nll_and_grad
-    from dqgp_tpu.models.kernels.quantum_kernel import gram_from_features
+    from dqgp.parallel.blocked import make_distributed_cholesky_nll
+    from dqgp.models.gp.posterior import masked_nll_and_grad
+    from dqgp.models.kernels.quantum_kernel import gram_from_features
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
@@ -202,11 +202,11 @@ def test_distributed_cholesky_nll_ragged_n():
     distributed zero-pads up to the layout multiple and n_real masks the
     padded rows out of every Gram panel — the NLL must equal the dense
     oracle on the REAL 101-row system exactly."""
-    from dqgp_tpu.parallel.blocked import (
+    from dqgp.parallel.blocked import (
         make_distributed_cholesky_nll, pad_rows_for_distributed,
     )
-    from dqgp_tpu.models.gp.posterior import masked_nll_and_grad
-    from dqgp_tpu.models.kernels.quantum_kernel import gram_from_features
+    from dqgp.models.gp.posterior import masked_nll_and_grad
+    from dqgp.models.kernels.quantum_kernel import gram_from_features
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
@@ -247,11 +247,11 @@ def test_distributed_cholesky_nll_ragged_n_regularized():
     """Ragged n_real with tikhonov: the eigen-clip must see only the REAL
     rows (the mask flows into the sharded LOBPCG), matching the dense
     regularized oracle at the regularizer's ~1e-4 tolerance."""
-    from dqgp_tpu.parallel.blocked import (
+    from dqgp.parallel.blocked import (
         make_distributed_cholesky_nll, pad_rows_for_distributed,
     )
-    from dqgp_tpu.models.gp.posterior import masked_nll_and_grad
-    from dqgp_tpu.models.kernels.quantum_kernel import gram_from_features
+    from dqgp.models.gp.posterior import masked_nll_and_grad
+    from dqgp.models.kernels.quantum_kernel import gram_from_features
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dqgp_tpu.ops.circuit import (
+from dqgp.ops.circuit import (
     CRX, CRY, CRZ, CX, CZ, ENC_ARCCOS, ENC_ID, H, RX, RY, RZ, RZZ, Circuit, Gate,
 )
-from dqgp_tpu.ops import statevector as sv
+from dqgp.ops import statevector as sv
 
 
 # ---------------------------------------------------------------------------
@@ -188,3 +188,43 @@ def test_pauli_string_expectation():
     # <XX> = 2 cos sin = sin(theta)
     got_xx = float(sv.pauli_string_expectation(states, "XX")[0])
     assert np.isclose(got_xx, np.sin(1.1), atol=1e-6)
+
+
+FAMILIES = ["chebyshev", "yz_cx", "hubregtsen", "kyriienko",
+            "multi_control", "layered", "random", "highdim"]
+
+
+@pytest.mark.parametrize("encoding", FAMILIES)
+def test_f32_engine_matches_complex128_oracle(encoding):
+    """The f32/complex64 engine that runs on the card agrees with the dense
+    complex128 oracle at the on-card smoke tolerance (atol 2e-5, rtol 2e-4):
+    projected XYZ features and the fidelity Gram |Psi Psi^H|^2."""
+    from dqgp.models.circuits import build_circuit
+
+    circ = build_circuit(encoding, 3, 2, 2)
+    rng = np.random.RandomState(5)
+    X = rng.uniform(-0.95, 0.95, (12, 2))
+    theta = rng.uniform(0, np.pi, circ.num_parameters)
+    angles = np.asarray(sv.angle_matrix(circ, jnp.asarray(X), jnp.asarray(theta),
+                                        jnp.float64))
+    ref = np.zeros((len(X), circ.dim), complex)
+    for i in range(len(X)):
+        s = np.zeros(circ.dim, complex)
+        s[0] = 1.0
+        for gi, g in enumerate(circ.gates):
+            s = oracle_apply(circ.num_qubits, g, angles[i, gi], s)
+        ref[i] = s
+    n = circ.num_qubits
+    ref_feats = np.stack(
+        [np.real(np.einsum("bi,ij,bj->b", ref.conj(), op_on(n, q, PAULI[p]), ref))
+         for p in "XYZ" for q in range(n)], axis=-1)
+
+    states = sv.batched_states(circ, jnp.asarray(X, jnp.float32),
+                               jnp.asarray(theta, jnp.float32))
+    assert states.dtype == jnp.complex64
+    feats = np.asarray(sv.pauli_features(states, n))
+    np.testing.assert_allclose(feats, ref_feats, atol=2e-5, rtol=2e-4)
+    st = np.asarray(states)
+    np.testing.assert_allclose(np.abs(st @ st.conj().T) ** 2,
+                               np.abs(ref @ ref.conj().T) ** 2,
+                               atol=2e-5, rtol=2e-4)

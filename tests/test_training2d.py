@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dqgp_tpu.data import split_data_numpy
-from dqgp_tpu.driver import init_admm_state
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels import QuantumKernelSpec
-from dqgp_tpu.parallel import (
+from dqgp.data import split_data_numpy
+from dqgp.driver import init_admm_state
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels import QuantumKernelSpec
+from dqgp.parallel import (
     agents_data_mesh,
     agents_mesh,
     make_admm_step,
@@ -26,7 +26,7 @@ from dqgp_tpu.parallel import (
     make_agent_batch,
     shard_batch_to_mesh_2d,
 )
-from dqgp_tpu.parallel.consensus import shard_batch_to_mesh
+from dqgp.parallel.consensus import shard_batch_to_mesh
 
 
 def _spec(n_qubits=3, layers=1, enc="hubregtsen"):
@@ -228,7 +228,7 @@ def test_driver_train_2d_autodiff():
     1-D autodiff driver run."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from dqgp_tpu.driver import TrainConfig, train
+    from dqgp.driver import TrainConfig, train
 
     spec = _spec()
     rng = np.random.RandomState(7)
@@ -251,7 +251,7 @@ def test_driver_train_on_2d_mesh():
     hyperparameters."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from dqgp_tpu.driver import TrainConfig, train
+    from dqgp.driver import TrainConfig, train
 
     spec = _spec()
     rng = np.random.RandomState(3)
@@ -380,7 +380,7 @@ def test_driver_train_2d_ragged_shards():
     per-agent padding up to the data-column count."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from dqgp_tpu.driver import TrainConfig, train
+    from dqgp.driver import TrainConfig, train
 
     spec = _spec()
     rng = np.random.RandomState(5)
@@ -403,7 +403,7 @@ def test_driver_chained_on_2d_mesh():
     dispatch on the same mesh."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from dqgp_tpu.driver import TrainConfig, train
+    from dqgp.driver import TrainConfig, train
 
     spec = _spec()
     rng = np.random.RandomState(3)
@@ -554,7 +554,7 @@ def test_driver_train_2d_distributed_solve():
     trajectory equals the replicated solve's."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from dqgp_tpu.driver import TrainConfig, train
+    from dqgp.driver import TrainConfig, train
 
     spec = _spec()
     rng = np.random.RandomState(3)
@@ -579,7 +579,7 @@ def test_driver_train_2d_distributed_solve_f64_rescue():
     Cholesky->LU->pinv chain (agent_riemannian.py:414-428)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from dqgp_tpu.driver import TrainConfig, train
+    from dqgp.driver import TrainConfig, train
 
     spec = _spec()
     rng = np.random.RandomState(5)

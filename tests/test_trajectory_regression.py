@@ -5,10 +5,10 @@ any change to update order, rounding, or kernel numerics shows up here."""
 import numpy as np
 import pytest
 
-from dqgp_tpu.data import generate_quantum_gp_data, split_data_numpy
-from dqgp_tpu.driver import TrainConfig, train
-from dqgp_tpu.models.circuits import build_circuit
-from dqgp_tpu.models.kernels import QuantumKernelSpec
+from dqgp.data import generate_quantum_gp_data, split_data_numpy
+from dqgp.driver import TrainConfig, train
+from dqgp.models.circuits import build_circuit
+from dqgp.models.kernels import QuantumKernelSpec
 
 # Recorded from the round-1 implementation (CPU, f64 GP, parity mode).
 # If an INTENTIONAL numerics change invalidates this, re-record and explain

@@ -50,8 +50,8 @@ def test_positive_fixtures_satisfy_reference_fixture_test(tmp_path):
     checks (same assertions test_reference_fixtures.py runs)."""
     import jax.numpy as jnp
 
-    from dqgp_tpu.models.kernels import create_quantum_kernel
-    from dqgp_tpu.models.kernels.quantum_kernel import gram
+    from dqgp.models.kernels import create_quantum_kernel
+    from dqgp.models.kernels.quantum_kernel import gram
 
     rc = verify_squlearn.main([
         "--fake", "--out", str(tmp_path),
